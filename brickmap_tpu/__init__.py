@@ -1,4 +1,4 @@
-"""brickmap_tpu — a TPU-native differentiable sparse-voxel path tracer.
+"""brickmap_tpu — a differentiable sparse-voxel path tracer.
 
 A from-scratch JAX/Pallas framework with the capabilities of the CUDA
 BrickMap renderer (stijnherfst/BrickMap): two-level sparse voxel grids

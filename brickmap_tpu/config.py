@@ -1,7 +1,7 @@
 """Static configuration for the brickmap renderer.
 
 The reference keeps every world/tuning constant as compile-time ``constexpr``
-(``/root/reference/src/variables.h:3-35``).  The TPU-native equivalent is a frozen
+(``variables.h:3-35``).  The equivalent here is a frozen
 dataclass whose instances are hashable and therefore usable as ``static_argnums``
 to :func:`jax.jit` — same "everything static" philosophy, but selectable per run.
 
@@ -18,9 +18,9 @@ Index-word bit layout (reference ``variables.h:29-33``)::
 
     [31: loaded | 30: unloaded | 29: requested | 19:12 lod 2x2x2 byte | 11:0 slot]
 
-The 12-bit slot indexes a brick *within its superchunk's pool segment*; the TPU
-build stores all segments in one HBM-resident linear pool and adds a per-superchunk
-base offset (see :mod:`brickmap_tpu.scene`), replacing the reference's per-superchunk
+The 12-bit slot indexes a brick *within its superchunk's pool segment*; this
+build stores all segments in one device-resident linear pool and adds a
+per-superchunk base offset (see :mod:`brickmap_tpu.scene`), replacing the reference's per-superchunk
 device pointers (``Scene.h:9-17``).
 """
 
@@ -42,7 +42,7 @@ BRICK_UNLOADED_BIT = 0x4000_0000  # brick exists but payload not resident
 BRICK_REQUESTED_BIT = 0x2000_0000  # residency request outstanding
 BRICK_FLAG_BITS = 0xE000_0000     # any of the three state flags above
 
-# TPU extension (bits 28:20, unused by the reference format): for EMPTY cells
+# Extension (bits 28:20, unused by the reference format): for EMPTY cells
 # the index word carries the Chebyshev (L-inf) distance to the nearest
 # non-empty brick cell, enabling empty-space skipping with a single gather per
 # traversal step.  Occupied cells always have a flag bit set; empty cells are
@@ -150,32 +150,18 @@ class RenderConfig:
     lens_radius: float = 0.0
     # Traversal step caps (static loop bounds for lax.while_loop safety).
     max_top_steps: int = 2048        # top-level DDA steps across the brick grid
-    rays_per_chunk: int = 16384      # on-device lax.map chunking of traversal
     max_brick_steps: int = 22        # 8x8x8 DDA worst case = 3*8 - 2
     max_byte_steps: int = 4          # 2x2x2 DDA worst case = 3*2 - 2
-    # Hierarchical Pallas kernel budgets (pallas/traverse3.py); used when the
-    # scene is a PagedScene.
-    paged_rounds: int = 128          # page-vote rounds per traversal
-    paged_march: int = 32            # cell steps per march phase
-    paged_phases: int = 2            # march+descend phases per round
-    paged_transit: int = 2           # empty-page ESS jumps per round
-    paged_fanout: int = 4            # pages marched per round (1-8)
-    # Round-5 same-session A/B (notes/PERF.md): two 512-cell pool slabs
-    # per round beat one 1024-cell slab by ~11% on interior views (same
-    # DMA volume, 2x finer descend targeting) and tie on divergent ones.
-    paged_pool_fanout: int = 2       # pool slabs (brick descends) per round
-    paged_pool_slab: int = 512       # cells per voted pool DMA slab (pow2)
-    paged_prefetch: bool = True      # cross-round double-buffered DMA
-    paged_tile_rows: int = 8         # sublanes per ray tile (8 or 16; 16 =
-    #   two-tile kernel state: one vote+DMA round serves 2048 lanes)
+    # Traversal implementation: "auto" = the Triton march kernel on a GPU
+    # and the XLA reference on the CPU; "xla" forces the XLA traversal
+    # (render.pathtrace._trace).
+    traversal: str = "auto"
     # In-program rescue of budget-exhausted lanes (render.pathtrace):
-    # rescue_passes - 1 medium-budget passes re-sort stragglers by their
-    # current page (resume-from-t), then a final no-ray-exceeds-it pass.
-    # Default 1: the round-5 same-session A/B (notes/PERF.md) measured the
-    # extra passes as a 3-5% cost that never paid for itself — the single
-    # resume-from-t rescue already skips the marched prefix.
+    # rescue_passes - 1 passes with max_top_steps = rescue_top_steps
+    # re-sort stragglers by their current superchunk (resume-from-t), then
+    # a final pass whose budget no ray can exhaust.
     rescue_passes: int = 1
-    rescue_rounds: int = 96          # paged_rounds per intermediate pass
+    rescue_top_steps: int = 512
 
     @property
     def num_pixels(self) -> int:
@@ -188,7 +174,9 @@ class MeshConfig:
 
     The reference is single-GPU (SURVEY.md §2 P6-P9); rays/tiles are sharded over
     a 1-axis ``rays`` mesh and grid parameters are replicated, with gradient
-    ``psum`` over ICI (see brickmap_tpu/parallel/).
+    ``pmean`` over NVLink (XLA hands the collectives to NCCL; every card
+    reaches every other at the same rate, so one axis is enough; see
+    brickmap_tpu/parallel/).
     """
 
     axis_name: str = "rays"

@@ -1,7 +1,7 @@
 """Differentiable voxel rendering: transmittance compositing along DDA rays.
 
 The reference has no backward pass of any kind; this is the new capability the
-TPU build adds (BASELINE.json config 5): pixel gradients w.r.t. per-voxel
+build adds (BASELINE.json config 5): pixel gradients w.r.t. per-voxel
 ``occupancy`` (soft opacity in [0,1]) and ``albedo`` (RGB).
 
 Model: a ray visits voxels front-to-back in exact DDA order (same traversal

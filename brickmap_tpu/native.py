@@ -1,7 +1,7 @@
 """ctypes bindings for the native (C++) host components.
 
 The reference's host runtime is C++ (worldgen Scene.cpp:44-147, streaming
-staging Scene.cpp:200-252); the TPU build keeps the host-side compute-bound
+staging Scene.cpp:200-252); this build keeps the host-side compute-bound
 loops native too.  The library is built on demand with g++ (no pybind11 in the
 image — plain ``extern "C"`` + ctypes) and every entry point has a NumPy
 fallback, so the package works without a toolchain.

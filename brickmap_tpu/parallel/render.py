@@ -7,11 +7,13 @@ supplies the distribution layer the north star requires:
   ``rays`` mesh with ``shard_map``; the voxel scene is replicated; no
   collectives in the forward path (embarrassingly parallel).
 * **Inverse** (:func:`inverse_train_step`): per-shard pixel batches, per-shard
-  gradients w.r.t. the replicated occupancy/albedo grids, ``psum``-averaged
-  over ICI — XLA overlaps the reduction with remaining backward compute.
+  gradients w.r.t. the replicated occupancy/albedo grids, ``pmean``-averaged
+  over NVLink (XLA hands the all-reduce to NCCL and overlaps it with the
+  remaining backward compute).  Every card of a host reaches every other at
+  the same rate, so the mesh is the one ``rays`` axis.
 
-Multi-host: build the mesh from ``jax.devices()`` after
-``jax.distributed.initialize``; the same code paths ride DCN across hosts.
+Several processes: build the mesh from ``jax.devices()`` after
+``jax.distributed.initialize``; the same code paths run unchanged.
 """
 
 from __future__ import annotations
@@ -53,6 +55,10 @@ def shard_rays(mesh: Mesh, tree, axis: str = "rays"):
         lambda x: jax.device_put(x, sharding), tree)
 
 
+# Each sharded step is one jitted program, compiled once per (mesh, config,
+# shapes): called outside ``jit``, ``shard_map`` runs its body op by op,
+# which costs seconds per call even at toy sizes.
+@partial(jax.jit, static_argnames=("mesh", "cfg", "width", "height", "axis"))
 def render_wave_sharded(mesh: Mesh, key, scene, camera_arrays, cam_brick,
                         cfg: BrickmapConfig, width: int, height: int,
                         axis: str = "rays"):
@@ -95,6 +101,7 @@ def render_wave_sharded(mesh: Mesh, key, scene, camera_arrays, cam_brick,
     return rgb, count, req
 
 
+@partial(jax.jit, static_argnames=("mesh", "max_steps", "axis"))
 def inverse_train_step(mesh: Mesh, origin, direction, occupancy, albedo,
                        background, target, max_steps: int = 192,
                        axis: str = "rays"):
@@ -129,13 +136,13 @@ def inverse_train_step(mesh: Mesh, origin, direction, occupancy, albedo,
     return step(origin, direction, occupancy, albedo, background, target)
 
 
-def inverse_train_step_sparse(mesh: Mesh, origin, direction, pscene, cellmap,
+@partial(jax.jit, static_argnames=("mesh", "grid", "k_segments", "axis"))
+def inverse_train_step_sparse(mesh: Mesh, origin, direction, scene, cellmap,
                               occupancy, albedo, background, target, grid,
-                              k_segments: int = 8, axis: str = "rays",
-                              interpret: bool = False):
+                              k_segments: int = 8, axis: str = "rays"):
     """Data-parallel gradient step over the SPARSE pool fields (config 5 at
-    world scale): rays sharded, paged scene + pool fields replicated, grads
-    pmean'd over ICI.  The record kernel runs per shard."""
+    world scale): rays sharded, flat scene + pool fields replicated, grads
+    pmean'd across the mesh.  The recorder runs per shard."""
     from ..diff.sparse import l2_loss_and_grads_sparse
 
     @partial(
@@ -144,12 +151,12 @@ def inverse_train_step_sparse(mesh: Mesh, origin, direction, pscene, cellmap,
         out_specs=(P(), P(), P()),
         check_vma=False,
     )
-    def step(o, dirs, psc, cm, occ, alb, bg, tgt):
+    def step(o, dirs, sc, cm, occ, alb, bg, tgt):
         loss, (docc, dalb) = l2_loss_and_grads_sparse(
-            o, dirs, psc, cm, occ, alb, bg, tgt, grid,
-            k_segments=k_segments, interpret=interpret)
+            o, dirs, sc, cm, occ, alb, bg, tgt, grid,
+            k_segments=k_segments)
         return (jax.lax.pmean(loss, axis), jax.lax.pmean(docc, axis),
                 jax.lax.pmean(dalb, axis))
 
-    return step(origin, direction, pscene, cellmap, occupancy, albedo,
+    return step(origin, direction, scene, cellmap, occupancy, albedo,
                 background, target)

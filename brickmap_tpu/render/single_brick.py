@@ -1,11 +1,10 @@
-"""Config 1 end-to-end: render a single 8x8x8 brick through the Pallas kernel.
+"""Config 1 end-to-end: render a single 8x8x8 brick.
 
 BASELINE.json config 1 ("single 8x8x8 brick, primary rays only, 256x256,
-CPU-reference DDA"): camera rays are clipped to the brick's AABB in XLA, the
-fused Pallas DDA kernel (:mod:`brickmap_tpu.pallas.brick`) traverses, and
-shading is a face-normal lambert against the sun — the whole forward pass for
-this config runs through the hardware kernel, oracle-checked by
-tests/test_pallas_brick.py and tests/test_single_brick.py.
+CPU-reference DDA"): camera rays are clipped to the brick's AABB, the XLA
+brick DDA (:mod:`brickmap_tpu.ops.brick`) traverses, and shading is a
+face-normal lambert against the sun; oracle-checked by tests/test_brick.py
+and tests/test_single_brick.py.
 """
 
 from __future__ import annotations
@@ -14,14 +13,14 @@ import jax
 import jax.numpy as jnp
 
 from ..ops import sunsky as sunsky_mod
-from ..render.camera import Camera, primary_rays
-from .brick import trace_single_brick
+from ..ops.brick import trace_single_brick
+from .camera import Camera, primary_rays
 
 __all__ = ["render_single_brick"]
 
 
 def render_single_brick(words, camera: Camera, width: int, height: int,
-                        sun_direction, key=None, interpret: bool = False):
+                        sun_direction, key=None):
     """Primary-ray render of one brick occupying [0,8)^3 world units.
 
     Returns (rgb [H, W, 3] float32 in [0,1], hit mask [H, W]).
@@ -40,7 +39,7 @@ def render_single_brick(words, camera: Camera, width: int, height: int,
     valid = texit > tenter
     clipped = origins + dirs * (tenter + 1e-3)[:, None]
 
-    res = trace_single_brick(clipped, dirs, words, interpret=interpret)
+    res = trace_single_brick(clipped, dirs, words)
     hit = res["hit"] & valid
     axis = res["axis"]
 

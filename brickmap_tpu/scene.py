@@ -5,7 +5,7 @@ Reference model (``/root/reference/src/Scene.{h,cpp}``): a host-side
 bricks plus a 16^3 table of packed index words; the GPU sees a table of device
 pointers per superchunk (``Scene.h:9-17``).
 
-TPU-native redesign (SURVEY.md §7): **flat arrays, no pointer chasing**.
+Redesign (SURVEY.md §7): **flat arrays, no pointer chasing**.
 
 * ``index_volume``  — uint32 ``[cells_z, cells_y, cells_x]`` dense brick-grid of
   packed index words (bit layout identical to the reference, variables.h:29-33).
@@ -24,7 +24,6 @@ is bit-identical to the reference's loop for the same height function.
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 from typing import Any
 
@@ -43,11 +42,6 @@ __all__ = ["VoxelScene", "generate_terrain_scene", "scene_from_dense",
 class VoxelScene:
     """Device-side scene: flat arrays only (a JAX pytree).
 
-    ``block_words`` is a gather-friendly re-tiling of ``index_volume`` into
-    4x4x4 cell blocks (one 256 B row per block): TPU random-gather cost is
-    per-descriptor, not per-byte, so the traversal fetches a whole block per
-    access and steps through it from registers.
-
     ``occupancy`` / ``albedo`` are the optional differentiable fields (soft
     occupancy in [0,1] and RGB albedo per pool voxel); ``None`` for the classic
     binary renderer.
@@ -56,14 +50,13 @@ class VoxelScene:
     index_volume: Array       # uint32 [CZ, CY, CX]
     pool_words: Array         # uint32 [P, cell_members]
     pool_base: Array          # int32  [num_superchunks]
-    block_words: Array | None = None  # uint32 [NB, 64] 4x4x4 blocks
     occupancy: Array | None = None   # float32 [P, 8, 8, 8] (z, y, x) or None
     albedo: Array | None = None      # float32 [P, 8, 8, 8, 3] or None
 
     def tree_flatten(self):
         return (
             (self.index_volume, self.pool_words, self.pool_base,
-             self.block_words, self.occupancy, self.albedo),
+             self.occupancy, self.albedo),
             None,
         )
 
@@ -74,41 +67,6 @@ class VoxelScene:
     @property
     def num_bricks(self) -> int:
         return self.pool_words.shape[0]
-
-
-BLOCK = 4  # cells per block edge for block_words
-
-
-def block_words_from_index(index_volume: np.ndarray,
-                           block: int = BLOCK) -> np.ndarray:
-    """Re-tile [CZ, CY, CX] index words into [NB, block^3] block rows.
-
-    Block id of cell (cz, cy, cx) is ``((cz//b)*NBY + cy//b)*NBX + cx//b``;
-    the word's row offset is ``((cz%b)*b + cy%b)*b + cx%b``.  Edges pad with
-    zero words (never tested — traversal exits at the grid bounds first).
-    """
-    xp = bits._xp(index_volume)
-    cz, cy, cx = index_volume.shape
-    b = block
-    nbz, nby, nbx = -(-cz // b), -(-cy // b), -(-cx // b)
-    if (nbz * b, nby * b, nbx * b) != (cz, cy, cx):
-        padded = xp.zeros((nbz * b, nby * b, nbx * b), index_volume.dtype)
-        if xp is np:
-            padded[:cz, :cy, :cx] = index_volume
-        else:
-            padded = padded.at[:cz, :cy, :cx].set(index_volume)
-    else:
-        padded = index_volume
-    r = padded.reshape(nbz, b, nby, b, nbx, b)
-    return r.transpose(0, 2, 4, 1, 3, 5).reshape(nbz * nby * nbx, b * b * b)
-
-
-def with_blocks(scene: "VoxelScene") -> "VoxelScene":
-    """Return the scene with ``block_words`` derived (idempotent)."""
-    if scene.block_words is not None:
-        return scene
-    return dataclasses.replace(
-        scene, block_words=block_words_from_index(np.asarray(scene.index_volume)))
 
 
 def _register_pytree() -> None:
@@ -145,6 +103,14 @@ def _pack_layer(counts: np.ndarray, grid: GridConfig):
     """
     b = grid.brick_size
     cy, cx = counts.shape[0] // b, counts.shape[1] // b
+    # Layers wholly above or below the terrain surface are uniform.
+    lo, hi = counts.min(), counts.max()
+    if hi == 0 or lo >= b:
+        full = lo >= b
+        return (np.full((cy, cx, grid.cell_members),
+                        0xFFFFFFFF if full else 0, np.uint32),
+                np.full((cy, cx), 0xFF if full else 0, np.uint32),
+                np.full((cy, cx), full))
     # [CY, y, CX, x] -> [CY, CX, y, x]
     c = counts.reshape(cy, b, cx, b).transpose(0, 2, 1, 3)
 
@@ -267,7 +233,7 @@ def _assemble(grid: GridConfig, layer_words, layer_lod, layer_nonempty,
     # slot assigned only once the brick becomes resident.
     packed_slots = slots.astype(np.uint32) if loaded else np.zeros_like(
         slots, dtype=np.uint32)
-    # Empty cells carry the Chebyshev skip distance in bits 28:20 (TPU
+    # Empty cells carry the Chebyshev skip distance in bits 28:20 (an
     # extension; the reference leaves those bits zero and tests `if (index)`,
     # which our traversal refines to `flags != 0`).
     dist = chebyshev_distance_field(nonempty)
@@ -327,8 +293,7 @@ def generate_terrain_scene(grid: GridConfig, residency: str = "full",
         grid, layer_words, layer_lod, layer_nonempty, residency
     )
     return VoxelScene(index_volume=index_volume, pool_words=pool,
-                      pool_base=pool_base,
-                      block_words=block_words_from_index(index_volume))
+                      pool_base=pool_base)
 
 
 def scene_from_dense(dense: np.ndarray, grid: GridConfig,
@@ -356,8 +321,7 @@ def scene_from_dense(dense: np.ndarray, grid: GridConfig,
         grid, layer_words, layer_lod, layer_nonempty, residency
     )
     return VoxelScene(index_volume=index_volume, pool_words=pool,
-                      pool_base=pool_base,
-                      block_words=block_words_from_index(index_volume))
+                      pool_base=pool_base)
 
 
 # ---------------------------------------------------------------------------
@@ -383,14 +347,13 @@ def load_scene(path: str) -> VoxelScene:
         index_volume=data["index_volume"],
         pool_words=data["pool_words"],
         pool_base=data["pool_base"],
-        block_words=block_words_from_index(data["index_volume"]),
         occupancy=data["occupancy"] if "occupancy" in data else None,
         albedo=data["albedo"] if "albedo" in data else None,
     )
 
 
 def scene_summary(scene: VoxelScene, grid: GridConfig) -> dict:
-    """Residency statistics — the TPU analog of Scene::dump (Scene.cpp:254-259)."""
+    """Residency statistics — the analog of Scene::dump (Scene.cpp:254-259)."""
     iv = np.asarray(scene.index_volume)
     nonempty = (iv & np.uint32(0xE000_0000)) != 0
     loaded = (iv & np.uint32(0x8000_0000)) != 0

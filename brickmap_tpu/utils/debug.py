@@ -1,11 +1,10 @@
-"""Debug modes — the TPU build's sanitizers (SURVEY.md §5).
+"""Debug modes — this build's sanitizers (SURVEY.md §5).
 
 The reference has no race detection or sanitizers (atomics + a frame-end
 device sync are its whole concurrency story, voxel.cuh:229-238,
 kernel.cu:431).  XLA is data-race-free by construction; what remains useful:
 
 * NaN trapping (``jax.debug_nans``) — the analog of compute-sanitizer checks;
-* Pallas interpreter mode for kernel debugging;
 * deterministic re-runs (counter-based RNG makes every wave replayable from
   its key).
 """
@@ -14,7 +13,7 @@ from __future__ import annotations
 
 from contextlib import contextmanager
 
-__all__ = ["debug_nans", "pallas_interpret", "enable_x64_guard"]
+__all__ = ["debug_nans", "enable_x64_guard"]
 
 
 @contextmanager
@@ -28,15 +27,6 @@ def debug_nans(enable: bool = True):
         yield
     finally:
         jax.config.update("jax_debug_nans", prev)
-
-
-@contextmanager
-def pallas_interpret():
-    """Force Pallas kernels into interpreter mode (CPU-debuggable)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    with pltpu.force_tpu_interpret_mode():
-        yield
 
 
 @contextmanager

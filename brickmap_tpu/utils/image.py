@@ -1,4 +1,4 @@
-"""Minimal dependency-free PNG/PPM output (the TPU build's "present" path —
+"""Minimal dependency-free PNG/PPM output (this build's "present" path —
 no GL interop needed, SURVEY.md §7 milestone 7)."""
 
 from __future__ import annotations

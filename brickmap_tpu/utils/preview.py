@@ -2,7 +2,7 @@
 
 The reference presents frames in a GLFW window with an ImGui stats panel and
 a WASD/mouse fly camera (``main.cpp:26-190``, ``camera.cpp:3-46``); on a
-headless TPU host the equivalent is a tiny dependency-free HTTP server: the
+headless host the equivalent is a tiny dependency-free HTTP server: the
 render loop pushes each progressive frame (PNG bytes + stats), any browser
 pointed at the port sees a self-refreshing view, and key input in the page is
 POSTed back as camera deltas that the render loop applies between waves

@@ -1,6 +1,6 @@
 // Native worldgen: perm-table simplex fBm heightfield, multithreaded.
 //
-// TPU-native equivalent of the reference's CPU worldgen hot loop
+// Equivalent of the reference's CPU worldgen hot loop
 // (/root/reference/src/Scene.cpp:44-147: one std::thread per hardware thread
 // with an atomic work counter over superchunks; SimplexNoise.cpp fBm).  Here
 // the unit of work is a row of the heightfield; brick packing stays in

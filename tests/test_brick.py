@@ -1,4 +1,4 @@
-"""Pallas brick-DDA kernel vs the scalar oracle (interpret mode on CPU)."""
+"""XLA brick DDA (config 1) vs the scalar oracle."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -6,7 +6,7 @@ import pytest
 
 from brickmap_tpu import bits
 from brickmap_tpu.ops import dda_ref
-from brickmap_tpu.pallas.brick import trace_single_brick
+from brickmap_tpu.ops.brick import trace_single_brick
 
 
 @pytest.fixture(scope="module")
@@ -48,7 +48,7 @@ def assert_match(res, refs, directions):
                 np.testing.assert_allclose(normal, 0.0, atol=1e-6)
 
 
-def test_pallas_matches_oracle_random(brick, rng):
+def test_brick_dda_matches_oracle_random(brick, rng):
     dense, words = brick
     n = 300
     # Rays aimed at the brick from outside, advanced to the entry face + eps
@@ -65,12 +65,12 @@ def test_pallas_matches_oracle_random(brick, rng):
     inside = ((origins > 0) & (origins < 8)).all(axis=1)
     origins, dirs = origins[inside][:257], dirs[inside][:257]
     res = trace_single_brick(jnp.asarray(origins), jnp.asarray(dirs),
-                             jnp.asarray(words), interpret=True)
+                             jnp.asarray(words))
     refs = run_oracle(words, origins, dirs)
     assert_match(res, refs, dirs)
 
 
-def test_pallas_axis_aligned(brick):
+def test_brick_dda_axis_aligned(brick):
     dense, words = brick
     origins, dirs = [], []
     for axis in range(3):
@@ -86,32 +86,32 @@ def test_pallas_axis_aligned(brick):
     origins = np.asarray(origins, np.float32)
     dirs = np.asarray(dirs, np.float32)
     res = trace_single_brick(jnp.asarray(origins), jnp.asarray(dirs),
-                             jnp.asarray(words), interpret=True)
+                             jnp.asarray(words))
     refs = run_oracle(words, origins, dirs)
     assert_match(res, refs, dirs)
 
 
-def test_pallas_inside_start(brick, rng):
+def test_brick_dda_inside_start(brick, rng):
     dense, words = brick
     n = 64
     origins = rng.uniform(0.05, 7.95, (n, 3)).astype(np.float32)
     dirs = rng.normal(size=(n, 3)).astype(np.float32)
     dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
     res = trace_single_brick(jnp.asarray(origins), jnp.asarray(dirs),
-                             jnp.asarray(words), interpret=True)
+                             jnp.asarray(words))
     refs = run_oracle(words, origins, dirs)
     assert_match(res, refs, dirs)
 
 
-def test_pallas_empty_and_full():
+def test_brick_dda_empty_and_full():
     empty = np.zeros(16, np.uint32)
     full = np.full(16, 0xFFFFFFFF, np.uint32)
     o = np.array([[0.01, 4.0, 4.0]], np.float32)
     d = np.array([[1.0, 0.0, 0.0]], np.float32)
     r_e = trace_single_brick(jnp.asarray(o), jnp.asarray(d),
-                             jnp.asarray(empty), interpret=True)
+                             jnp.asarray(empty))
     assert not bool(np.asarray(r_e["hit"])[0])
     r_f = trace_single_brick(jnp.asarray(o), jnp.asarray(d),
-                             jnp.asarray(full), interpret=True)
+                             jnp.asarray(full))
     assert bool(np.asarray(r_f["hit"])[0])
     assert float(np.asarray(r_f["t"])[0]) == 0.0  # entry-cell hit

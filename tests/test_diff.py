@@ -89,7 +89,7 @@ def test_lattice_diagonal_tie_order():
     """A corner-aligned diagonal ray crosses x and y walls at EXACT ties;
     the merged walk must visit each voxel once, stepping y-then-x like the
     sequential DDA (z>y>x tie priority), not collapse/double-visit the
-    diagonal voxel (ADVICE round 2 #1)."""
+    diagonal voxel)."""
     from brickmap_tpu.diff.sparse import _merge_offsets
 
     s = np.sqrt(0.5, dtype=np.float32)

@@ -80,7 +80,7 @@ def test_sharded_forward_statistics_match_single(world):
 
 def test_sharded_forward_non_divisible_resolution(world):
     """Pixel counts that do not divide the mesh pad by wrap-around instead
-    of asserting (VERDICT r2 weak #6): 33x16 = 528 pixels on 8 devices."""
+    of asserting: 33x16 = 528 pixels on 8 devices."""
     jsc, arrays, cam_brick = world
     w, h = 33, 16
     arrays2 = dict(arrays)  # camera arrays are resolution-independent
@@ -120,8 +120,9 @@ def test_inverse_train_step_matches_single_device(rng):
                                rtol=1e-4, atol=1e-7)
 
 
-def test_sharded_paged_wave_matches_single():
-    """The Pallas kernel under shard_map: sharded wave == single-device wave."""
+def test_sharded_paged_wave_matches_single(march_on_cpu):
+    """The march kernel under shard_map: sharded wave == single-device
+    wave."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -129,7 +130,6 @@ def test_sharded_paged_wave_matches_single():
     from brickmap_tpu import scene as scene_mod
     from brickmap_tpu.config import BrickmapConfig, GridConfig, RenderConfig
     from brickmap_tpu.ops import sunsky as ss
-    from brickmap_tpu.pallas.paged import build_paged_scene
     from brickmap_tpu.parallel.render import (
         make_mesh, render_wave_sharded, replicate)
     from brickmap_tpu.render import pathtrace
@@ -145,7 +145,7 @@ def test_sharded_paged_wave_matches_single():
     dense = np.zeros((128, 128, 128), bool)
     dense[16:48, 32:96, 32:96] = True
     sc = scene_mod.scene_from_dense(dense, cfg.grid)
-    psc = jax.tree.map(jnp.asarray, build_paged_scene(sc, cfg.grid))
+    psc = jax.tree.map(jnp.asarray, sc)
 
     w, h = cfg.render.width, cfg.render.height
     cam = Camera(position=(10.0, 10.0, 80.0),
@@ -172,7 +172,7 @@ def test_sharded_paged_wave_matches_single():
                                rtol=1e-5, atol=1e-6)
 
 
-def test_sparse_inverse_step_sharded(rng):
+def test_sparse_inverse_step_sharded(rng, march_on_cpu):
     """Sparse-pool gradients under ray-DP equal the single-device gradients."""
     import jax
     import jax.numpy as jnp
@@ -182,7 +182,6 @@ def test_sparse_inverse_step_sharded(rng):
     from brickmap_tpu.config import GridConfig
     from brickmap_tpu.diff.sparse import (
         cell_pool_map, l2_loss_and_grads_sparse, pool_fields_from_bitmask)
-    from brickmap_tpu.pallas.paged import build_paged_scene
     from brickmap_tpu.parallel.render import inverse_train_step_sparse, make_mesh
 
     mesh8 = make_mesh(8)
@@ -191,7 +190,7 @@ def test_sparse_inverse_step_sharded(rng):
     dense = np.zeros((128, 128, 128), bool)
     dense[16:40, 40:80, 40:80] = True
     sc = scene_mod.scene_from_dense(dense, grid)
-    psc = jax.tree.map(jnp.asarray, build_paged_scene(sc, grid))
+    psc = jax.tree.map(jnp.asarray, sc)
     cellmap = jnp.asarray(cell_pool_map(sc, grid))
     occ, alb = pool_fields_from_bitmask(sc)
     occ = occ * 0.6
@@ -207,11 +206,11 @@ def test_sparse_inverse_step_sharded(rng):
     loss_s, docc_s, dalb_s = inverse_train_step_sparse(
         mesh8, jnp.asarray(origins), jnp.asarray(dirs.astype(np.float32)),
         psc, cellmap, jnp.asarray(occ), jnp.asarray(alb), jnp.asarray(bg),
-        jnp.asarray(tgt), grid, interpret=True)
+        jnp.asarray(tgt), grid)
     loss_1, (docc_1, dalb_1) = l2_loss_and_grads_sparse(
         jnp.asarray(origins), jnp.asarray(dirs.astype(np.float32)), psc,
         cellmap, jnp.asarray(occ), jnp.asarray(alb), jnp.asarray(bg),
-        jnp.asarray(tgt), grid, interpret=True)
+        jnp.asarray(tgt), grid)
     np.testing.assert_allclose(float(loss_s), float(loss_1), rtol=1e-5)
     np.testing.assert_allclose(np.asarray(docc_s), np.asarray(docc_1),
                                rtol=1e-4, atol=1e-7)

@@ -104,27 +104,37 @@ def test_film_tonemap(world):
     assert (img >= 0).all() and (img <= 1).all()
 
 
-def test_paged_wave_matches_voxel_wave(world):
-    """The hierarchical Pallas kernel as the wave's traversal must reproduce
-    the XLA path's image exactly (same RNG, ray-for-ray parity)."""
-    from brickmap_tpu.pallas.paged import build_paged_scene
+def test_paged_wave_matches_voxel_wave(world, request, monkeypatch):
+    """The march kernel as the wave's traversal must reproduce the XLA
+    path's image exactly (same RNG, ray-for-ray parity)."""
+    from brickmap_tpu.ops import traverse
 
-    sc, jsc, _, arrays, cam_brick = world
-    psc = jax.tree.map(jnp.asarray, build_paged_scene(sc, CFG.grid))
+    _, jsc, _, arrays, cam_brick = world
     key = jax.random.PRNGKey(4)
+    # The XLA side renders before the kernel is routed in.
+    assert pathtrace.trace_rays is traverse.trace_rays
     rgb_v, _, req_v = pathtrace.render_wave(key, jsc, arrays, cam_brick,
                                             CFG, W, H)
-    rgb_p, _, req_p = pathtrace.render_wave(key, psc, arrays, cam_brick,
+
+    request.getfixturevalue("march_on_cpu")
+    kernel, calls = pathtrace.trace_rays, []
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs)
+        return kernel(*args, **kwargs)
+
+    monkeypatch.setattr(pathtrace, "trace_rays", counted)
+    rgb_p, _, req_p = pathtrace.render_wave(key, jsc, arrays, cam_brick,
                                             CFG, W, H)
-    np.testing.assert_allclose(np.asarray(rgb_p), np.asarray(rgb_v),
-                               rtol=1e-4, atol=1e-5)
+    assert calls, "the kernel side never reached the march kernel"
+    np.testing.assert_array_equal(np.asarray(rgb_p), np.asarray(rgb_v))
     np.testing.assert_array_equal(np.asarray(req_p["mask"]),
                                   np.asarray(req_v["mask"]))
 
 
 def test_exhausted_rays_not_shaded_as_sky(world):
     """A budget-truncated ray must contribute NOTHING (and be counted),
-    never silently shade as a sky miss (VERDICT r2 weak #3)."""
+    never silently shade as a sky miss."""
     import dataclasses
 
     sc, jsc, cam, arrays, cam_brick = world
@@ -151,29 +161,27 @@ def test_exhausted_rays_not_shaded_as_sky(world):
     np.testing.assert_array_equal(np.asarray(rgb)[exh], 0.0)
 
 
-def test_exhausted_rays_paged_kernel(world):
-    """Same contract through the Pallas paged kernel (round budget)."""
+def test_exhausted_rays_paged_kernel(world, march_on_cpu):
+    """Same contract through the march kernel (step budget)."""
     import dataclasses
 
-    from brickmap_tpu.pallas.paged import build_paged_scene
-    from brickmap_tpu.pallas.traverse3 import trace_rays_paged
+    from brickmap_tpu.pallas.march import trace_rays_kernel
 
     sc, jsc, cam, arrays, cam_brick = world
-    psc = jax.tree.map(jnp.asarray, build_paged_scene(sc, CFG.grid))
     cfg_t = CFG.replace(render=dataclasses.replace(
-        CFG.render, max_bounces=0, paged_rounds=1, paged_march=2,
-        paged_phases=1))
+        CFG.render, max_bounces=0, max_top_steps=2, max_brick_steps=0,
+        max_byte_steps=0))
     key = jax.random.PRNGKey(34)
     k_pix, k_loop = jax.random.split(key)
     st = pathtrace._primary_state(k_pix, arrays, cfg_t, W, H)
     origins, dirs = st["origins"], st["dirs"]
     _, k_b = jax.random.split(k_loop)
-    st = pathtrace._bounce_step(jnp.int32(0), k_b, st, psc, cam_brick,
+    st = pathtrace._bounce_step(jnp.int32(0), k_b, st, jsc, cam_brick,
                                 arrays["sun_direction"], cfg_t)
-    rgb, count, req = pathtrace._final_shadow(st, psc, cam_brick, cfg_t)
-    res = trace_rays_paged(origins, dirs, psc, cam_brick, cfg_t.grid,
-                           max_page_rounds=1, march_steps=2, phase_iters=1,
-                           interpret=True)
+    rgb, count, req = pathtrace._final_shadow(st, jsc, cam_brick, cfg_t)
+    res = trace_rays_kernel(origins, dirs, jsc.index_volume, jsc.pool_words,
+                            jsc.pool_base, cam_brick, cfg_t.grid, max_iters=2,
+                            block=32, interpret=True)
     exh = np.asarray(res["exhausted"]).astype(bool)
     assert exh.any()
     assert int(req["exhausted_rays"]) == int(exh.sum())
@@ -239,60 +247,57 @@ def test_wave_image_matches_oracle_shading(world):
             err_msg=f"pixel {i}: o={origins0[i]} d={dirs0[i]}")
 
 
-def test_rescue_pass_zeroes_exhausted(world):
+def test_rescue_pass_zeroes_exhausted(world, march_on_cpu):
     """The staged wave re-traces budget-exhausted lanes at an escalated
-    budget: the wave result must report ZERO exhausted rays and match the
-    ample-budget render bit-for-bit (VERDICT r3 item 2 — every ray
-    terminates with a defined result, voxel.cuh:135-261)."""
+    budget, resuming from the kernel's ``resume_t``: the wave result must
+    report ZERO exhausted rays and match the ample-budget render (every
+    ray terminates with a defined result, voxel.cuh:135-261)."""
     import dataclasses
 
-    from brickmap_tpu.pallas.paged import build_paged_scene
+    from brickmap_tpu.pallas.march import trace_rays_kernel
 
     sc, jsc, cam, arrays, cam_brick = world
-    psc = jax.tree.map(jnp.asarray, build_paged_scene(sc, CFG.grid))
     cfg_t = CFG.replace(render=dataclasses.replace(
-        CFG.render, max_bounces=1, paged_rounds=2, paged_march=2,
-        paged_phases=1))
+        CFG.render, max_bounces=1, max_top_steps=4, max_brick_steps=0,
+        max_byte_steps=0))
     key = jax.random.PRNGKey(35)
 
     # The starved budget really does exhaust lanes on the raw kernel (the
-    # rescue now runs INSIDE _trace_stage, so probe the kernel directly)...
-    from brickmap_tpu.pallas.traverse3 import trace_rays_paged
-
+    # rescue runs INSIDE _trace_stage, so probe the kernel directly)...
     st = pathtrace._primary_state(jax.random.split(key)[0], arrays, cfg_t,
                                   W, H)
-    raw = trace_rays_paged(st["origins"], st["dirs"], psc, cam_brick,
-                           cfg_t.grid, max_page_rounds=2, march_steps=2,
-                           phase_iters=1, interpret=True)
+    raw = trace_rays_kernel(st["origins"], st["dirs"], jsc.index_volume,
+                            jsc.pool_words, jsc.pool_base, cam_brick,
+                            cfg_t.grid, max_iters=pathtrace.trace_budget(
+                                cfg_t), block=32, interpret=True)
     assert int(np.asarray(raw["exhausted"]).sum()) > 0
 
     # ...but the wave-level rescue retraces them to completion.
-    rgb, count, req = pathtrace.render_wave(key, psc, arrays, cam_brick,
+    rgb, count, req = pathtrace.render_wave(key, jsc, arrays, cam_brick,
                                             cfg_t, W, H)
     assert int(req["exhausted_rays"]) == 0
 
     cfg_hi = CFG.replace(render=dataclasses.replace(
-        CFG.render, max_bounces=1, paged_rounds=256))
-    rgb_hi, _, _ = pathtrace.render_wave(key, psc, arrays, cam_brick,
+        CFG.render, max_bounces=1))
+    rgb_hi, _, _ = pathtrace.render_wave(key, jsc, arrays, cam_brick,
                                          cfg_hi, W, H)
     np.testing.assert_allclose(np.asarray(rgb), np.asarray(rgb_hi),
                                rtol=1e-4, atol=1e-5)
 
 
-def test_rescue_reports_honestly_when_starved(world, monkeypatch):
+def test_rescue_reports_honestly_when_starved(world, march_on_cpu,
+                                              monkeypatch):
     """If even the rescue budget is exhausted, the count must survive to the
     wave result (the harness FAILS on it rather than hiding it)."""
     import dataclasses
 
-    from brickmap_tpu.pallas.paged import build_paged_scene
     from brickmap_tpu.render import pathtrace as pt
 
     sc, jsc, cam, arrays, cam_brick = world
-    psc = jax.tree.map(jnp.asarray, build_paged_scene(sc, CFG.grid))
     cfg_t = CFG.replace(render=dataclasses.replace(
-        CFG.render, max_bounces=0, paged_rounds=1, paged_march=2,
-        paged_phases=1, rescue_rounds=1))   # starve intermediate passes too
-    monkeypatch.setattr(pt, "RESCUE_ROUNDS", 1)
-    rgb, count, req = pt.render_wave(jax.random.PRNGKey(36), psc, arrays,
+        CFG.render, max_bounces=0, max_top_steps=2, max_brick_steps=0,
+        max_byte_steps=0, rescue_top_steps=2))
+    monkeypatch.setattr(pt, "_rescue_cfg", lambda cfg: cfg)
+    rgb, count, req = pt.render_wave(jax.random.PRNGKey(36), jsc, arrays,
                                      cam_brick, cfg_t, W, H)
     assert int(req["exhausted_rays"]) > 0

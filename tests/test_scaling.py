@@ -18,7 +18,9 @@ def test_device_counts():
     assert _device_counts(1) == [1]
 
 
-def test_scaling_benchmark_runs_on_cpu_mesh():
+def test_scaling_benchmark_runs_on_cpu_mesh(march_on_cpu):
+    """Forward waves and sparse inverse steps, both through the march kernel
+    (interpret mode), on every mesh size."""
     cfg = BrickmapConfig(
         grid=GridConfig(grid_size=128, grid_height=128),
         render=RenderConfig(width=32, height=16, max_bounces=1,
@@ -28,7 +30,7 @@ def test_scaling_benchmark_runs_on_cpu_mesh():
     dense[16:48, 32:96, 32:96] = True
     sc = scene_mod.scene_from_dense(dense, cfg.grid)
 
-    # Full [1, 2, 4, 8] ladder over the virtual mesh (VERDICT r4 weak #7).
+    # Full [1, 2, 4, 8] ladder over the virtual mesh.
     out = run_scaling_benchmark(sc, cfg, 32, 16, device_counts=[1, 2, 4, 8],
                                 waves=1, inverse_rays=256, k_segments=4,
                                 verbose=False)

@@ -1,4 +1,4 @@
-"""Config 1 end-to-end render through the Pallas kernel (interpret mode)."""
+"""Config 1 end-to-end render through the XLA brick DDA."""
 
 import numpy as np
 
@@ -6,8 +6,8 @@ import jax.numpy as jnp
 
 from brickmap_tpu import bits
 from brickmap_tpu.ops import sunsky as ss
-from brickmap_tpu.pallas.single_brick import render_single_brick
 from brickmap_tpu.render.camera import Camera
+from brickmap_tpu.render.single_brick import render_single_brick
 
 
 def test_render_single_brick(rng):
@@ -17,7 +17,7 @@ def test_render_single_brick(rng):
         np.asarray(bits.brick_words_from_dense(dense[None])[0], np.uint32))
     cam = Camera(position=(-10.0, 4.0, 4.0), direction=(1.0, 0.0, 0.0))
     sun = ss.sun_direction_from_position(jnp.asarray([0.05, 0.1]))
-    rgb, hit = render_single_brick(words, cam, 64, 64, sun, interpret=True)
+    rgb, hit = render_single_brick(words, cam, 64, 64, sun)
     rgb, hit = np.asarray(rgb), np.asarray(hit)
     assert rgb.shape == (64, 64, 3) and np.isfinite(rgb).all()
     # The cube covers part of the view; some rays hit, some see sky.

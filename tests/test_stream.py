@@ -154,43 +154,45 @@ def test_surface_only_requests_on_terrain(rng):
             assert not buried, f"buried brick {(x, y, z)} became resident"
 
 
-def test_paged_streaming_round_trip(truth):
-    """paged=True: loaded bits + pool columns scatter incrementally and the
-    hierarchical kernel sees newly resident bricks (the TPU analog of the
-    upload scatter, kernel.cu:141-151)."""
-    from brickmap_tpu.pallas.traverse3 import trace_rays_paged
+def ktrace(dev_scene, origins, directions):
+    """The march kernel (interpret mode) over a streaming device scene."""
+    from brickmap_tpu.pallas.march import trace_rays_kernel
 
-    mgr = StreamingScene(truth, GRID, paged=True)
+    return trace_rays_kernel(
+        jnp.asarray(origins, jnp.float32),
+        jnp.asarray(directions, jnp.float32),
+        dev_scene.index_volume, dev_scene.pool_words, dev_scene.pool_base,
+        jnp.asarray(CAM, jnp.int32), GRID, max_iters=512, block=32,
+        interpret=True)
+
+
+def test_paged_streaming_round_trip(truth):
+    """The march kernel sees newly resident bricks after the upload
+    scatters (kernel.cu:141-151's role) and agrees with the XLA path."""
+    mgr = StreamingScene(truth, GRID)
     origins = np.array([[0.5, 64.0, 30.0]], np.float32)
     directions = np.array([[1.0, 0.0, 0.0]], np.float32)
 
-    def ptrace():
-        return trace_rays_paged(
-            jnp.asarray(origins), jnp.asarray(directions), mgr.device_paged(),
-            jnp.asarray(CAM, jnp.int32), GRID, interpret=True)
-
-    r1 = ptrace()
+    r1 = ktrace(mgr.device_scene(), origins, directions)
     assert bool(np.asarray(r1["hit"])[0])
     assert bool(np.asarray(r1["request"])[0])
     req = tuple(int(v) for v in np.asarray(r1["request_pos"])[0])
     assert mgr.process_requests([req]) == 1
 
-    r2 = ptrace()
+    r2 = ktrace(mgr.device_scene(), origins, directions)
     assert bool(np.asarray(r2["hit"])[0])
     # Brick now resident: fine-voxel hit, no new request for that brick.
     xr = trace(mgr.device_scene(), origins, directions)
-    np.testing.assert_allclose(np.asarray(r2["t"]), np.asarray(xr["t"]),
-                               atol=1e-3)
+    np.testing.assert_array_equal(np.asarray(r2["t"]), np.asarray(xr["t"]))
+    assert abs(float(np.asarray(r2["t"])[0]) - 31.5) < 1e-3
     np.testing.assert_array_equal(np.asarray(r2["request"]),
                                   np.asarray(xr["request"]))
 
 
 def test_paged_streaming_many_waves(truth, rng):
-    """Multi-wave paged streaming converges to the fully-resident image."""
-    from brickmap_tpu.pallas.paged import build_paged_scene
-    from brickmap_tpu.pallas.traverse3 import trace_rays_paged
-
-    mgr = StreamingScene(truth, GRID, queue_size=64, paged=True)
+    """Multi-wave streaming through the march kernel converges to the
+    fully-resident image."""
+    mgr = StreamingScene(truth, GRID, queue_size=64)
     n = 128
     origins = rng.uniform([0, 0, 110], [128, 128, 125], (n, 3)).astype(
         np.float32)
@@ -198,13 +200,8 @@ def test_paged_streaming_many_waves(truth, rng):
     directions[:, 2] = -np.abs(directions[:, 2]) - 0.5
     directions /= np.linalg.norm(directions, axis=1, keepdims=True)
 
-    def ptrace(psc):
-        return trace_rays_paged(
-            jnp.asarray(origins), jnp.asarray(directions), psc,
-            jnp.asarray(CAM, jnp.int32), GRID, interpret=True)
-
     for _ in range(40):
-        res = ptrace(mgr.device_paged())
+        res = ktrace(mgr.device_scene(), origins, directions)
         mask = np.asarray(res["request"])
         if not mask.any():
             break
@@ -213,38 +210,16 @@ def test_paged_streaming_many_waves(truth, rng):
         if mgr.process_requests(reqs) == 0:
             break
 
-    resident = ptrace(mgr.device_paged())
-    full = ptrace(jax.tree.map(jnp.asarray, build_paged_scene(truth, GRID)))
+    resident = ktrace(mgr.device_scene(), origins, directions)
+    full = ktrace(jax.tree.map(jnp.asarray, truth), origins, directions)
     np.testing.assert_array_equal(np.asarray(resident["hit"]),
                                   np.asarray(full["hit"]))
     np.testing.assert_allclose(np.asarray(resident["t"]),
                                np.asarray(full["t"]), atol=1e-3)
 
 
-def test_paged_rejects_non_default_geometry():
-    """Non-default page/brick geometry must raise up front, not silently
-    corrupt the packed paged planes (VERDICT r4 weak #5)."""
-    from brickmap_tpu.pallas.paged import build_paged_scene
-
-    grid8 = GridConfig(grid_size=64, grid_height=64, supergrid_cell_size=8)
-    dense = np.zeros((64, 64, 64), bool)
-    dense[8:24, 16:48, 16:48] = True
-    sc = scene_mod.scene_from_dense(dense, grid8)
-    with pytest.raises(ValueError, match="supergrid_cell_size"):
-        build_paged_scene(sc, grid8)
-    with pytest.raises(ValueError, match="supergrid_cell_size"):
-        StreamingScene(sc, grid8, paged=True)
-    grid4 = GridConfig(grid_size=128, grid_height=128, brick_size=4)
-    dense4 = np.zeros((128, 128, 128), bool)
-    dense4[8:24, 16:48, 16:48] = True
-    sc4 = scene_mod.scene_from_dense(dense4, grid4)
-    with pytest.raises(ValueError, match="brick_size"):
-        StreamingScene(sc4, grid4, paged=True)
-
-
 def test_streaming_parity_non_default_grid(rng):
-    """Streaming on a supergrid_cell_size=8 world (XLA engine, which is
-    parameterized) converges to the freshly-built-scene image — the
+    """Streaming on a supergrid_cell_size=8 world converges to the freshly-built-scene image — the
     request/scatter side must honor GridConfig, not assume the default."""
     grid8 = GridConfig(grid_size=64, grid_height=64, supergrid_cell_size=8)
     dense = np.zeros((64, 64, 64), bool)

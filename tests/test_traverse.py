@@ -235,53 +235,6 @@ def test_distance_field_conservative(rng):
         assert d == min(cheb, 511), (z, y, x, d, cheb)
 
 
-def test_blocked_matches_simple(noise_scene, box_scene, rng):
-    """trace_rays_blocked must agree with trace_rays (and thus the oracle)."""
-    from brickmap_tpu.ops.traverse import trace_rays_blocked
-
-    for sc, _ in (noise_scene, box_scene):
-        n = 96
-        origins = rng.uniform([-10, -10, -10], [138, 138, 138],
-                              (n, 3)).astype(np.float32)
-        directions = rng.normal(size=(n, 3)).astype(np.float32)
-        directions /= np.linalg.norm(directions, axis=1, keepdims=True)
-        common = (jnp.asarray(origins), jnp.asarray(directions))
-        a = trace_rays_blocked(
-            *common, jnp.asarray(sc.index_volume),
-            jnp.asarray(sc.block_words), jnp.asarray(sc.pool_words),
-            jnp.asarray(sc.pool_base), jnp.asarray(CAM, jnp.int32), GRID)
-        b = trace_rays(
-            *common, jnp.asarray(sc.index_volume),
-            jnp.asarray(sc.pool_words), jnp.asarray(sc.pool_base),
-            jnp.asarray(CAM, jnp.int32), GRID)
-        np.testing.assert_array_equal(np.asarray(a["hit"]),
-                                      np.asarray(b["hit"]))
-        np.testing.assert_allclose(np.asarray(a["t"]), np.asarray(b["t"]),
-                                   atol=1e-3)
-        np.testing.assert_allclose(np.asarray(a["normal"]),
-                                   np.asarray(b["normal"]), atol=1e-5)
-
-
-def test_blocked_matches_oracle_lod(box_scene, rng):
-    from brickmap_tpu.ops.traverse import trace_rays_blocked
-
-    sc, _ = box_scene
-    n = 48
-    origins = rng.uniform([0, 0, 0], [128, 128, 128], (n, 3)).astype(np.float32)
-    directions = rng.normal(size=(n, 3)).astype(np.float32)
-    directions /= np.linalg.norm(directions, axis=1, keepdims=True)
-    for cam in ([0, 0, 0], [400, 0, 0], [900, 0, 0]):
-        cam = np.asarray(cam, np.int64)
-        res = trace_rays_blocked(
-            jnp.asarray(origins), jnp.asarray(directions),
-            jnp.asarray(sc.index_volume), jnp.asarray(sc.block_words),
-            jnp.asarray(sc.pool_words), jnp.asarray(sc.pool_base),
-            jnp.asarray(cam, jnp.int32), GRID)
-        refs = [dda_ref.intersect_voxel(o, d, sc, GRID, cam)
-                for o, d in zip(origins, directions)]
-        assert_match(res, refs, origins, directions)
-
-
 def test_aabb_clip_on_slab_planes(box_scene):
     """Origins exactly on slab planes with zero direction components: 0/0
     NaNs must be ignored (np.fmin/fmax semantics, voxel.cuh:13-24)."""
